@@ -1,8 +1,7 @@
-"""classpro_tpu — TPU-native k-mer classification framework.
+"""classpro_tpu — GPU-accelerated k-mer classification framework.
 
-Re-implements the capabilities of ClassPro (Suzuki & Myers, WABI 2022;
-reference C sources under /root/reference/src) as a JAX/XLA/Pallas-first
-framework: every k-mer of every HiFi read is classified into one of four
+Re-implements the capabilities of ClassPro (Suzuki & Myers, WABI 2022)
+as a JAX/XLA framework: every k-mer of every HiFi read is classified into one of four
 states — Error / Haploid / Diplo / Repeat — from FASTK count profiles.
 
 Layout
@@ -15,8 +14,8 @@ Layout
                               threshold tables  (ref: hist.c, wall.c:44-244)
 - ``classpro_tpu.context``  : per-base sequence context (ref: context.c)
 - ``classpro_tpu.exact``    : bit-exact scalar reference engine (oracle)
-- ``classpro_tpu.tpu``      : batched JAX/Pallas production engine
-- ``classpro_tpu.parallel`` : device-mesh data parallelism, multi-host psum
+- ``classpro_tpu.tpu``      : batched JAX production engine (device side)
+- ``classpro_tpu.parallel`` : device-mesh data parallelism, multi-process psum
 - ``classpro_tpu.tools``    : ClassGS / prof2class / class2acc / simulator
 """
 

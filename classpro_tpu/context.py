@@ -8,7 +8,7 @@ profile position p looks at ``lctx[p + K - 2]``, a GAIN at ``rctx[p]``
 (ClassPro.c:141-142: ctx[DROP] = _lctx + K - 2, ctx[GAIN] = rctx).
 
 This module holds the faithful transcription of the reference pass
-(the oracle); the batched/vectorized form lives in the TPU engine and is
+(the oracle); the batched/vectorized form lives in the device engine and is
 tested element-exact against this one.
 
 Note on >127-long runs: the reference back-fills ``rctx`` only over the

@@ -2,7 +2,7 @@
 
 A faithful re-implementation of the reference per-read classification
 pipeline (wall.c / class_rel.c / class_unrel.c) with identical float64
-semantics.  This is the correctness oracle the batched TPU engine is
+semantics.  This is the correctness oracle the batched device engine is
 tested against, and the byte-identity path for `.class` parity with the
 reference binary.
 """

@@ -1,9 +1,9 @@
-"""Multi-host data-parallel classification driver.
+"""Multi-process data-parallel classification driver.
 
-TPU-native mapping of the reference's only parallelism (T pthreads over
+Device mapping of the reference's only parallelism (T pthreads over
 contiguous read ranges, ClassPro.c:574-578 / io.c:175-176,353-354):
 
-* each PROCESS (host) owns the contiguous read range [beg, end) given by
+* each PROCESS (one per card) owns the contiguous read range [beg, end) given by
   the same ceil-partition the reference uses for threads;
 * global estimation is either the shared ``.hist`` file (what the
   reference binary reads — exact parity) or, when requested, a ``psum``
@@ -14,13 +14,16 @@ contiguous read ranges, ClassPro.c:574-578 / io.c:175-176,353-354):
 * process 0 concatenates the shards in read order (merge_files,
   io.c:70-112).
 
-Cross-host classification needs ZERO communication — scaling is bounded
-by host IO and read-length skew alone.
+Cross-process classification needs ZERO communication — scaling is
+bounded by host IO and read-length skew alone.
 
-Run one process per host, e.g.::
+Run one process per card, e.g. four cards of one host::
 
-    python -m classpro_tpu.parallel.driver reads.fasta \
-        --coord 10.0.0.1:8476 --nproc 4 --pid $RANK
+    for r in 0 1 2 3; do python -m classpro_tpu.parallel.driver \
+        reads.fasta --coord localhost:8476 --nproc 4 --pid $r & done
+
+Each process is pinned to one local card (``--local-device``, default
+its ``--pid``), so that no process reserves memory on the others.
 
 Single-process invocation (``--nproc 1``, the default) needs no
 coordinator and is what ``tests/test_distributed.py`` drives in
@@ -129,18 +132,23 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
                 coverage: int = 0, read_len: int = 20000,
                 model_path: str | None = None, batch_size: int = 200,
                 verbose: bool = False, resume: bool = False,
+                local_device: int | None = None,
                 _skip_init: bool = False) -> str:
     """One host's share of the job.  Returns the shard (or merged) path.
 
     With ``resume=True``, a shard whose output file already exists,
     validates structurally, and holds exactly this range's record count
     is skipped (kill-and-rerun recovery; the reference simply overwrites
-    its temp shards, io.c:139 — resume is a superset, off by default)."""
+    its temp shards, io.c:139 — resume is a superset, off by default).
+
+    ``local_device`` (default ``pid``) is the one local card this
+    process may see when ``nproc`` > 1."""
     if nproc > 1 and not _skip_init:
         import jax
 
-        jax.distributed.initialize(coordinator_address=coord,
-                                   num_processes=nproc, process_id=pid)
+        jax.distributed.initialize(
+            coordinator_address=coord, num_processes=nproc, process_id=pid,
+            local_device_ids=[pid if local_device is None else local_device])
 
     from classpro_tpu.constants import DEFAULTS
     from classpro_tpu.estimation import build_global_model
@@ -250,7 +258,10 @@ def main(argv=None) -> int:
     ap.add_argument("--nproc", type=int, default=1)
     ap.add_argument("--pid", type=int,
                     default=int(os.environ.get("JAX_PROCESS_ID", 0)))
-    ap.add_argument("--coord", help="coordinator host:port (multi-host)")
+    ap.add_argument("--coord", help="coordinator host:port (multi-process)")
+    ap.add_argument("--local-device", type=int, default=None,
+                    help="local card index this process uses "
+                         "(default: --pid, one process per card)")
     ap.add_argument("-c", "--coverage", type=int, default=0)
     ap.add_argument("-r", "--read-len", type=int, default=20000)
     ap.add_argument("-M", "--model")
@@ -261,9 +272,10 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     shard = run_process(a.source, a.fastk_root, a.output, a.nproc, a.pid,
                         a.coord, a.coverage, a.read_len, a.model,
-                        verbose=a.verbose, resume=a.resume)
+                        verbose=a.verbose, resume=a.resume,
+                        local_device=a.local_device)
     if a.nproc > 1:
-        # cross-host barrier before the merge: one psum over the mesh
+        # cross-process barrier before the merge: one psum over the mesh
         from classpro_tpu.parallel.mesh import (data_parallel_mesh,
                                                 psum_histogram)
 

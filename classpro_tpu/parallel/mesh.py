@@ -1,6 +1,6 @@
 """Mesh construction and sharded execution.
 
-Design (scaling-book recipe): pick a 1-D mesh over all chips, shard the
+Design (scaling-book recipe): pick a 1-D mesh over all cards, shard the
 read-batch axis with `P("dp")`, leave every model table replicated, and
 let XLA insert any collectives.  Classification needs zero cross-device
 communication — reads are independent — so scaling is bounded only by
@@ -62,15 +62,10 @@ def psum_histogram(mesh: Mesh, local_hist: np.ndarray) -> np.ndarray:
     arr = jax.make_array_from_callback((n,) + local_hist.shape,
                                        in_sharding, _shard)
 
-    try:
-        from jax import shard_map                    # jax >= 0.5
-    except ImportError:                              # DeprecationWarning path
-        from jax.experimental.shard_map import shard_map
-
     def _sum(h):
         return jax.lax.psum(h[0], axis_name="dp")
 
-    f = jax.jit(shard_map(
+    f = jax.jit(jax.shard_map(
         _sum, mesh=mesh,
         in_specs=P("dp", *([None] * local_hist.ndim)),
         out_specs=P(*([None] * local_hist.ndim))))

@@ -1,15 +1,15 @@
-"""Persistent warm-engine service (the cold-start amortization story).
+"""Persistent warm-engine service.
 
 The reference binary cold-starts in ~1 s (ClassPro.c:503 main is plain
-precompiled C).  On this platform the TPU executable build is deferred
-to FIRST EXECUTION and costs minutes per (R, max_m) shape (CLAUDE.md),
-so a run-once `cli classify` pays a cold tax the C binary doesn't.
-``cli serve`` holds that tax exactly once per service lifetime: a
-daemon keeps the process-global AOT executable cache
-(`tpu.engine._AOT_CACHE`) warm — the rel program takes its model
-tables as RUNTIME arguments, so one warmed executable per shape serves
-every dataset/model — and successive ``cli classify --server`` jobs
-attach over a unix socket and start streaming in seconds.
+precompiled C), while a run-once `cli classify` starts JAX and compiles
+(or loads from the persistent cache) one device program per (R, max_m)
+shape.  ``cli serve`` pays that once per service lifetime: the daemon
+keeps the process-global AOT executable cache (`tpu.engine._AOT_CACHE`)
+warm — the rel program takes its model tables as RUNTIME arguments, so
+one executable per shape serves every dataset/model — and successive
+``cli classify --server`` jobs attach over a unix socket.  Whether the
+daemon still pays for itself beside the persistent compile cache is
+decided from chip_smoke.py's cold/warm numbers (ROADMAP 3b).
 
 Protocol: one JSON object per line, one reply line per request.
   {"cmd": "ping"}                      -> {"ok": true, "pid": N,
@@ -22,9 +22,8 @@ Protocol: one JSON object per line, one reply line per request.
   {"cmd": "stats"}                     -> {"ok": true, "jobs": N, ...}
   {"cmd": "shutdown"}                  -> {"ok": true}
 
-Jobs run serially (one engine stream at a time — the single host core
-and the single chip make queueing the right model; the reference's own
-threading is intra-job, ClassPro.c:574-578).
+Jobs run serially (one engine stream at a time on the one card; the
+reference's own threading is intra-job, ClassPro.c:574-578).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Batched TPU engine (JAX/XLA/Pallas).
+"""Batched device engine (JAX/XLA).
 
 See ARCHITECTURE.md for the stage map. All kernels operate on padded
 `(B, L)` batches in float64 on the decision path and are tested for

@@ -9,8 +9,7 @@ concordance.
 The downward recurrence of bessi(n, x) has a data-dependent start index
 2*(n + floor(sqrt(40 n))); on device we run a fixed-length masked loop
 from a static NMAX bound, which executes identical arithmetic for the
-active range (verified bit-exact vs the scalar implementation on CPU; on
-TPU, f64 is emulated and may differ in final ulps).
+active range (verified bit-exact vs the scalar implementation on CPU).
 """
 
 from __future__ import annotations

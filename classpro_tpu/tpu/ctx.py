@@ -1,4 +1,4 @@
-"""Batched sequence context on device (ref context.c, TPU-first design).
+"""Batched sequence context on device (ref context.c).
 
 Key structural insight (validated element-exact against the oracle
 transcription): the reference's left-context recurrences are strided

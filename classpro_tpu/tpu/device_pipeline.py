@@ -1,11 +1,8 @@
 """Device classification programs.
 
-Two platform facts shape this module (measured, see rel_dev2.py):
-every host<->device synchronisation costs a fixed ~30ms round trip AND
-every individual array transfer costs ~20ms regardless of size (bulk
-bandwidth is ~1.4GB/s).  So the host ships exactly TWO 1D blobs — one
-int32, one float64 — per chunk, device handles are reused across
-programs, and results come back as single small arrays.
+The host ships exactly TWO 1D blobs — one int32, one float64 — per
+chunk, and the results come back as one small array, so a chunk costs
+one upload of each blob and one host synchronisation.
 
 ``classify_batch_dev`` runs the whole classification as ONE program
 per sub-batch: merged forward+backward reliable-interval DP
@@ -13,9 +10,9 @@ per sub-batch: merged forward+backward reliable-interval DP
 heuristics and fw/bw reconciliation, then both unreliable-relaxation
 sweeps (class_unrel.c:248-300).  (A two-phase variant that synced
 mid-chunk to let the host drop the relaxation steps of rel intervals
-fixed at H/D — provable no-ops, class_unrel.c:265-273 — was measured
-net-negative: the extra round trip idles the device longer than the
-dropped steps save.)
+fixed at H/D — provable no-ops, class_unrel.c:265-273 — was tried on
+the first target and dropped: the extra round trip cost more than the
+dropped steps saved.)
 
 Blob layouts (sizes static per jit specialisation):
 
@@ -26,8 +23,7 @@ Blob layouts (sizes static per jit specialisation):
   fblob (f64):   pe,peob,peoe,lf_cb,lf_ce [5 x Bn*max_n] |
                  pe_rel,lf_bcnt,lf_ecnt [3 x R2*max_m]
 
-(log-factorial planes are host table lookups — cheap there, ~25ns per
-gathered element here.)
+(log-factorial planes are host table lookups, not device gathers.)
 """
 
 from __future__ import annotations
@@ -45,7 +41,7 @@ from classpro_tpu.tpu.rel_dev2 import RelParams2, rel_dp_pass2
 from classpro_tpu.tpu.skellam_dev import PackedSkellam, build_packed_skellam
 
 # CP_ABLATE=stage,stage,...: MEASUREMENT-ONLY program ablations used to
-# attribute device-program cost on the live chip (output is wrong with
+# attribute device-program cost on the device (output is wrong with
 # any stage listed; never set in production).  Stages: "norescue"
 # (skip the conditional second DP pass), "notb" (skip the traceback
 # loop, rel_dev2), "nodp" (skip the DP while_loop, rel_dev2).
@@ -71,7 +67,7 @@ class RelOnlyParams(NamedTuple):
     executable's signature excludes the unrel tables, whose shapes are
     dataset-dependent (btg_flat) — with them in the signature every
     dataset would fragment the process-global executable cache and
-    re-pay the minutes-long first execution (engine._AOT_CACHE)."""
+    compile again (engine._AOT_CACHE)."""
     rel: RelParams2
     gcov: jnp.ndarray
 
@@ -157,11 +153,10 @@ def _rel_pipeline(U, PP: PipelineParams, R2: int, max_m: int,
 
     The production path (rel_only_dev) passes demotes=False: the
     no-h2/all-H/70%-H demotions are pure integer reductions over data
-    the host already holds, and the relay charges ~1-2 ms per
-    out-of-loop reduction kernel (tools/relay_probe.py) — so they run
-    on the host instead (demote_host below, exact int64, same
-    arithmetic).  Only the rescue stays here: it gates a second DP
-    pass, which must not cost a round trip.  The all-device
+    the host already holds, so they run on the host instead
+    (demote_host below, exact int64, same arithmetic).  Only the rescue
+    stays here: it gates a second DP pass, which must not cost a round
+    trip.  The all-device
     fallback/mesh path keeps demotes=True."""
     P = PP.rel
     R = R2 // 2
@@ -201,9 +196,7 @@ def _rel_pipeline(U, PP: PipelineParams, R2: int, max_m: int,
     gDi = cov_t[:, DIPLO].astype(jnp.int64)
 
     # ---- no-H rescue (class_rel.c:630-672 / 744-784) -------------------
-    # The relay charges ~1-2 ms per out-of-loop reduction KERNEL
-    # (tools/relay_probe.py / the round-3 ablation matrix), so the
-    # whole predicate is packed into exactly two reductions: one
+    # The whole predicate is packed into exactly two reductions: one
     # 3-plane sum (D-length sum, D-count sum, H presence) and one
     # keyed min whose value carries both the first-D column and its
     # entering count (col << 16 | bcnt; bcnt <= 32767 < 2^16 so the
@@ -595,10 +588,8 @@ def _rel_only_core(fblob, iblob, PP: PipelineParams, R: int, max_m: int):
     flip = jnp.where(cols[None, :] < m[:, None],
                      m[:, None] - 1 - cols[None, :], cols[None, :])
 
-    # ONE reversal gather for all five int64 planes and one for pe: the
-    # relay charges ~1 ms per out-of-loop gather KERNEL while elementwise
-    # stacking is free (tools/relay_probe.py, 2026-08-19), so six
-    # take_along_axis calls are fused into two
+    # ONE reversal gather for all five int64 planes and one for pe: six
+    # take_along_axis calls fused into two gather kernels
     max_cc = jnp.maximum(ccb, cce)
     stk = jnp.stack([e, cce, b, ccb, max_cc])            # (5, R, max_m)
     rstk = jnp.take_along_axis(stk, flip[None], axis=2)
@@ -639,10 +630,8 @@ def _pack_out(asgn, mm, rescue, max_m: int):
     """Fuse the three rel outputs into ONE uint8 array (2R, max_m+5):
     [asgn bytes | flags (bit0 risky, bit1 rescue) | f32(margin) x4].
 
-    On the 08-18 relay every np.asarray is its own synchronous round
-    trip (~25-30 ms); three outputs fetched separately cost ~3 RTTs
-    per program — measured 2026-08-19: an echo program (zero compute)
-    took ~92-102 ms of the full 114 ms.  One fused fetch pays one."""
+    One fused fetch is one host synchronisation per chunk instead of
+    three."""
     risky = (mm > 0.0) & (mm < REL_MARGIN_EPS)          # f64, exact
     flags = risky.astype(jnp.uint8) | (rescue.astype(jnp.uint8) << 1)
     mm32 = jax.lax.bitcast_convert_type(

@@ -203,14 +203,13 @@ def logp_skellam_dev(k, lam, ta, tb, logfact):
 # ---------------------------------------------------------------------------
 # Packed single-gather variant.
 #
-# TPU gathers inside device loops cost ~25ns per gathered element but only
-# ~5ns when the four interpolation nodes are fetched as one contiguous
-# 4-vector.  ``build_packed_table`` lays the two regions of the Skellam
+# Fetching the four interpolation nodes as one contiguous 4-vector takes
+# one gather instead of four.  ``build_packed_table`` lays the two regions of the Skellam
 # table out as one (NMAX+1, NA_GRID+NB_GRID, 4) array whose [n, i] entry
 # holds the 4 Lagrange nodes around grid index i, so one gather per
 # evaluation replaces the 8 node gathers + logfact gather of the unpacked
 # path (the logfact[n] term becomes a one-hot contraction over 385 rows,
-# which is effectively free on the VPU).  Values are bit-identical to
+# which is cheap vector work).  Values are bit-identical to
 # ``logp_skellam_dev``: same nodes, same weight arithmetic, same special
 # cases.
 
@@ -262,8 +261,8 @@ def split_gather(tab, n, idx, nsplit: int):
     """tab[n, idx] issued as ``nsplit`` independent sub-gathers.
 
     Inside device loops a single big gather serializes on its full
-    latency every iteration; independent smaller gathers overlap
-    (measured ~5x at nsplit=8), so callers in scan bodies split."""
+    latency every iteration; independent smaller gathers can overlap,
+    so callers in scan bodies may split."""
     if nsplit <= 1:
         return tab[n, idx]
     shape = n.shape

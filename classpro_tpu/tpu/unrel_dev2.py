@@ -1,6 +1,6 @@
 """Batched unreliable-interval relaxation on device, v2 (ref class_unrel.c).
 
-Redesign of unrel_dev.py under the measured TPU cost model (see
+Redesign of unrel_dev.py that minimises gathers inside loops (see
 rel_dev2.py): the two relaxation sweeps remain genuinely sequential
 `lax.scan`s (later steps read earlier updates), but each step now costs
 two small gathers instead of ~30:
@@ -28,13 +28,14 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from classpro_tpu.tpu.rel_dev2 import _div_cr, _top2_margin
 from classpro_tpu.tpu.skellam_dev import PackedSkellam, logp_skellam_packed
 
 ERROR, REPEAT, HAPLO, DIPLO, N_STATE = 0, 1, 2, 3, 4
 NEG_INF = float("-inf")
-BIG = jnp.int32(1 << 30)
+BIG = np.int32(1 << 30)      # host scalar: importing touches no device
 
 # plane order in the per-interval static value tensor `P13`
 (_CB, _CE, _LFCB, _LFCE, _XL, _XR, _LE,
@@ -136,7 +137,7 @@ def _unrel_lane(dyn, xs_desc, xs_asc, n, P: UnrelParams2, max_n: int):
     """Build one lane's initial state and step runner.
 
     The step body is latency-bound on op COUNT inside the device loop
-    (each small op costs ~1us regardless of size), so all per-state /
+    (each small op has a fixed cost regardless of size), so all per-state /
     per-side work is stacked into lane axes: the four nearest-neighbor
     searches run as one (B,2,N) masked reduction pair, the four
     neighbor-value reads as one (B,4,N,3) one-hot contraction, the four

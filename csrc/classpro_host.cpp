@@ -2386,8 +2386,8 @@ int64_t cp_fastx_parse(const char* buf, int64_t len, int64_t max_rec,
 // reference class_rel.c:41-963).  Used by the engine's exactness guard
 // to re-decide decision-margin-flagged reads with the reference's exact
 // arithmetic at native speed: the Python oracle costs ~120 ms per read,
-// which on the live TPU platform (device DP ~0.5 ms/chunk) became the
-// steady-state bottleneck whenever a read carries a genuine near-tie.
+// which would make every read with a genuine near-tie a steady-state
+// bottleneck.
 // Equivalence with the oracle is pinned per-read by
 // tests/test_exact_rel_native.py; any edit here must keep it green.
 // ===========================================================================

@@ -3,7 +3,7 @@
 
 Stages + packs real chunks from the medium fixture, then times the
 (R, max_m) bucket's AOT executable serially INCLUDING the result fetch
-(on the current relay only a host fetch waits for completion).  Run it
+(the fetch waits for the program to finish).  Run it
 once per env from a shell loop; the switches are read at import time:
 
   python3 tools/ablate_device.py                      # full program

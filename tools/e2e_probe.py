@@ -1,12 +1,10 @@
 #!/usr/bin/env python3
-"""Why is bench e2e ~15-20% below steady? (VERDICT r3 #5)
+"""Where does bench's e2e-minus-steady gap go? (VERDICT r3 #5)
 
-The e2e-minus-steady gap per chunk (~7 ms at B=200) matches the FULL
-input-production cost (gzip inflate + FASTA parse + FASTK decode +
-glue), i.e. production appears NOT to overlap the device wait at all,
-even though the chunk generator runs on a bounded prefetch thread and
-every heavy piece is GIL-releasing C.  This probe measures where the
-time actually sits:
+The chunk generator runs on a bounded prefetch thread and every heavy
+piece of input production (gzip inflate + FASTA parse + FASTK decode)
+is GIL-releasing C, so it should overlap the device wait.  This probe
+measures where the time actually sits:
 
 * per-pass producer work time (inside the prefetch thread);
 * producer blocked-on-full-queue time vs consumer blocked-on-empty
