@@ -10,10 +10,11 @@ last only when all passed.
 
 This process never initialises JAX: whatever needs the card runs in a
 child process, one at a time (the serve phase's clients do not touch
-JAX), so the card only ever holds one JAX process.  Children share one
-compile cache, emptied at start, so the first compile is cold and the
-later ones are warm; when JAX_COMPILATION_CACHE_DIR is set, that
-directory is used as found instead.
+JAX), so the card only ever holds one JAX process.  Children use the
+compile cache as found (JAX_COMPILATION_CACHE_DIR, else the program's
+.jax_cache/), except the scale phase's timed runs: they use
+.smoke/jax_cache_cold, emptied first, so that its first compile is cold
+and the next process's is warm.
 
 Usage:
     python chip_smoke.py                # one card: golden, scale, served, div_cr
@@ -42,6 +43,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke")
 FIX = os.path.join(REPO, "tests", "fixtures")
+
+COLD_CACHE = os.path.join(WORK, "jax_cache_cold")
 
 ONE_CARD_PHASES = ("golden", "scale", "served", "div_cr")
 FOUR_CARD_PHASES = ("round_robin4", "shard_driver4", "mesh4")
@@ -87,6 +90,15 @@ def child_env() -> dict:
     return env
 
 
+def cold_cache_env() -> dict:
+    """Child env whose compile cache is COLD_CACHE, whatever cache the
+    caller set: a cache from outside may already hold these programs,
+    and then a compile timed there is not cold."""
+    env = child_env()
+    env["JAX_COMPILATION_CACHE_DIR"] = COLD_CACHE
+    return env
+
+
 def run(cmd: list[str], timeout: float, env: dict | None = None,
         what: str = "") -> subprocess.CompletedProcess:
     t0 = time.time()
@@ -102,15 +114,17 @@ def run(cmd: list[str], timeout: float, env: dict | None = None,
     return r
 
 
-def cli(*args: str, timeout: float = 600, what: str = ""):
+def cli(*args: str, timeout: float = 600, what: str = "",
+        env: dict | None = None):
     return run([sys.executable, "-m", "classpro_tpu.cli", "--platform",
-                PLATFORM, *args], timeout, what=what or " ".join(args[:2]))
+                PLATFORM, *args], timeout, env=env,
+               what=what or " ".join(args[:2]))
 
 
-def worker(call: str, timeout: float = 600) -> dict:
+def worker(call: str, timeout: float = 600, env: dict | None = None) -> dict:
     """Run ``chip_smoke.<call>`` in a child; it prints one JSON line."""
     r = run([sys.executable, "-c", f"import chip_smoke as s; s.{call}"],
-            timeout, what=call.split("(")[0])
+            timeout, env=env, what=call.split("(")[0])
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
@@ -298,7 +312,6 @@ def _golden_case(name: str, fx: str, golden: str, extra=()) -> dict:
 def phase_golden() -> dict:
     res = {}
     tiny, medium = os.path.join(FIX, "tiny"), os.path.join(FIX, "medium")
-    # cold compile cache first, then the same input warm (tiny -s)
     res["tiny"] = _golden_case("tiny", tiny,
                                os.path.join(tiny, "golden.class.gz"))
     res["tiny_s"] = _golden_case("tiny_s", tiny,
@@ -331,8 +344,8 @@ def phase_golden() -> dict:
 
 
 def _seeds_match(seeds_path: str, golden: str) -> bool:
-    """The -s labels equal the reference seed.c harness's labels (the
-    CLI writes header + N*(K-1) + labels per read)."""
+    """The -s labels of every read equal the reference seed.c harness's
+    labels (the CLI writes header + N*(K-1) + labels per read)."""
     from classpro_tpu.io.fastk import open_profiles
 
     K = open_profiles(os.path.join(FIX, "tiny", "reads")).kmer
@@ -341,7 +354,7 @@ def _seeds_match(seeds_path: str, golden: str) -> bool:
     with open(seeds_path) as f:
         ours = f.read().splitlines()[1::2]
     return len(ours) == len(gold) and all(
-        o == "N" * (K - 1) + g for o, g in zip(ours, gold) if g)
+        o == "N" * (K - 1) + g for o, g in zip(ours, gold))
 
 
 def golden_branch() -> None:
@@ -428,10 +441,20 @@ def phase_scale() -> dict:
     from classpro_tpu.io.fastk import load_histogram, open_profiles
 
     root, meta = scale_dataset()
-    out = os.path.join(WORK, "out", "scale.class")
-    r = cli("classify", root + ".fasta", "-o", out, "--stats-json",
-            out + ".stats.json", timeout=900, what="classify scale")
-    st = _stats(out + ".stats.json")
+    # the same classify twice in one emptied cache: cold, then warm
+    shutil.rmtree(COLD_CACHE, ignore_errors=True)
+    env = cold_cache_env()
+    runs = {}
+    for temp in ("cold", "warm"):
+        o = os.path.join(WORK, "out", f"scale_{temp}.class")
+        r = cli("classify", root + ".fasta", "-o", o, "--stats-json",
+                o + ".stats.json", timeout=900, env=env,
+                what=f"classify scale ({temp} compile cache)")
+        runs[temp] = {"out": o, "process_s": r.wall_s,
+                      "stats": _stats(o + ".stats.json")}
+    out, st = runs["cold"]["out"], runs["warm"]["stats"]
+    if not _same(out, runs["warm"]["out"]):
+        raise PhaseError("the warm run's output differs from the cold run's")
     recs = _check_records(out, root, meta)
     gm = build_global_model(load_histogram(root))
     P = open_profiles(root)
@@ -440,26 +463,26 @@ def phase_scale() -> dict:
         len(recs), ORACLE_SAMPLE, replace=False)
     bad = [int(i) for i in picks
            if oracle.classify(recs[i][0], P.fetch(int(i))) != recs[i][1]]
-    dev = worker(f"device_timing({root!r})", timeout=900)
+    dev = worker(f"device_timing({root!r})", timeout=900, env=env)
     with open(out, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
-    res = {"meta": meta, "stats": st, "process_s": r.wall_s,
-           "sha256": digest,
-           "e2e_mkmers_s": meta["n_kmers"] / r.wall_s / 1e6,
-           "stream_mkmers_s": meta["n_kmers"] / st["stream_wall_s"] / 1e6,
+    for temp, one in runs.items():
+        rs = one["stats"]
+        one["e2e_mkmers_s"] = meta["n_kmers"] / one["process_s"] / 1e6
+        log(f"[scale] compile cache {temp}: process wall "
+            f"{one['process_s']:.2f}s = {one['e2e_mkmers_s']:.2f} Mk-mers/s"
+            f" end to end; first_chunk_s {rs['first_chunk_s']:.2f}; "
+            f"compile_s {rs['compile_s']:.2f}; stream {rs['stream_wall_s']}s"
+            f" = {meta['n_kmers'] / rs['stream_wall_s'] / 1e6:.2f} Mk-mers/s")
+    res = {"meta": meta, "runs": runs, "sha256": digest,
            "oracle_sampled": len(picks), "oracle_mismatch": bad,
            "device": dev}
-    log(f"[scale] {meta['n_reads']} reads, {meta['n_kmers']} k-mers: "
-        f"process wall {r.wall_s:.2f}s = {res['e2e_mkmers_s']:.2f} "
-        f"Mk-mers/s end to end (stream {st['stream_wall_s']}s = "
-        f"{res['stream_mkmers_s']:.2f} Mk-mers/s); steady "
-        f"{dev['steady_mkmers_s']:.2f} Mk-mers/s (second pass, compile "
-        f"in window {dev['compile_s_in_window']:.2f}s); output sha256 "
-        f"{digest}")
-    log(f"[scale] compile_s cold {st['compile_s']:.2f} (cli run) / warm "
-        f"{dev['compile_s']:.2f} (next process); first_chunk_s "
-        f"{st['first_chunk_s']:.2f}; chunks {st['chunks']} absorbed "
-        f"{st['absorbed_chunks']} shapes {st['shapes']}")
+    log(f"[scale] {meta['n_reads']} reads, {meta['n_kmers']} k-mers; "
+        f"steady {dev['steady_mkmers_s']:.2f} Mk-mers/s (second pass, "
+        f"compile in window {dev['compile_s_in_window']:.2f}s; compile "
+        f"{dev['compile_s']:.2f}s in that process, cache warm); chunks "
+        f"{st['chunks']} absorbed {st['absorbed_chunks']} shapes "
+        f"{st['shapes']}; output sha256 {digest}")
     log(f"[scale] DP steps/chunk {st['dp_steps'] / max(st['chunks'], 1):.1f}"
         f" (stream), timed chunks: {dev['dp_steps_mean']:.1f} steps, "
         f"device {dev['device_ms_mean']:.3f} ms/chunk (rel program alone,"
@@ -620,15 +643,12 @@ def _nvidia_smi() -> str:
     return r.stdout.strip() or r.stderr.strip()
 
 
-def _prepare_cache() -> str:
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        d = os.environ["JAX_COMPILATION_CACHE_DIR"]
-        n = len(os.listdir(d)) if os.path.isdir(d) else 0
-        return f"{d} (set outside; {n} entries found)"
-    d = os.path.join(WORK, "jax_cache")
-    shutil.rmtree(d, ignore_errors=True)
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = d     # for the children
-    return f"{d} (emptied: first compile cold)"
+def _cache_as_found() -> str:
+    from classpro_tpu.backend import compile_cache_dir
+
+    d = compile_cache_dir()
+    n = len(os.listdir(d)) if os.path.isdir(d) else 0
+    return f"{d} (as found: {n} entries)"
 
 
 def main(argv=None) -> int:
@@ -653,7 +673,7 @@ def main(argv=None) -> int:
         return 1
     smi = _nvidia_smi()
     report.update(device=dev, nvidia_smi=smi,
-                  compile_cache=_prepare_cache())
+                  compile_cache=_cache_as_found())
     log(f"[device] {smi}")
     log(f"[device] platform {dev['platform']} kind {dev['kind']} x"
         f"{dev['count']}; jax {dev['jax']}; backend "

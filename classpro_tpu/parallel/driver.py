@@ -17,13 +17,14 @@ contiguous read ranges, ClassPro.c:574-578 / io.c:175-176,353-354):
 Cross-process classification needs ZERO communication — scaling is
 bounded by host IO and read-length skew alone.
 
-Run one process per card, e.g. four cards of one host::
+Run one process per card, ranks laid out host by host, e.g. four cards
+of one host::
 
     for r in 0 1 2 3; do python -m classpro_tpu.parallel.driver \
         reads.fasta --coord localhost:8476 --nproc 4 --pid $r & done
 
-Each process is pinned to one local card (``--local-device``, default
-its ``--pid``), so that no process reserves memory on the others.
+Each process takes one card of its host (``local_card``), so that no
+process reserves memory on the others.
 
 Single-process invocation (``--nproc 1``, the default) needs no
 coordinator and is what ``tests/test_distributed.py`` drives in
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 
 import numpy as np
@@ -44,6 +46,22 @@ def shard_range(nreads: int, nproc: int, pid: int) -> tuple[int, int]:
     per = (nreads + nproc - 1) // nproc
     beg = min(per * pid, nreads)
     return beg, min(beg + per, nreads)
+
+
+def local_card(pid: int) -> int:
+    """The card process ``pid`` takes on its host: the pid modulo the
+    host's card count (the entries of CUDA_VISIBLE_DEVICES when set,
+    else the /dev/nvidiaN nodes), so that on 4-card hosts pid 5 takes
+    card 1.  With no count to be had, the pid itself."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        n = len([d for d in vis.split(",") if d.strip()])
+    elif os.path.isdir("/dev"):
+        n = sum(1 for f in os.listdir("/dev")
+                if re.fullmatch(r"nvidia\d+", f))
+    else:
+        n = 0
+    return pid % n if n else pid
 
 
 def partial_instance_hist(profiles, low: int, high: int) -> np.ndarray:
@@ -132,23 +150,19 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
                 coverage: int = 0, read_len: int = 20000,
                 model_path: str | None = None, batch_size: int = 200,
                 verbose: bool = False, resume: bool = False,
-                local_device: int | None = None,
                 _skip_init: bool = False) -> str:
     """One host's share of the job.  Returns the shard (or merged) path.
 
     With ``resume=True``, a shard whose output file already exists,
     validates structurally, and holds exactly this range's record count
     is skipped (kill-and-rerun recovery; the reference simply overwrites
-    its temp shards, io.c:139 — resume is a superset, off by default).
-
-    ``local_device`` (default ``pid``) is the one local card this
-    process may see when ``nproc`` > 1."""
+    its temp shards, io.c:139 — resume is a superset, off by default)."""
     if nproc > 1 and not _skip_init:
         import jax
 
-        jax.distributed.initialize(
-            coordinator_address=coord, num_processes=nproc, process_id=pid,
-            local_device_ids=[pid if local_device is None else local_device])
+        jax.distributed.initialize(coordinator_address=coord,
+                                   num_processes=nproc, process_id=pid,
+                                   local_device_ids=[local_card(pid)])
 
     from classpro_tpu.constants import DEFAULTS
     from classpro_tpu.estimation import build_global_model
@@ -259,9 +273,6 @@ def main(argv=None) -> int:
     ap.add_argument("--pid", type=int,
                     default=int(os.environ.get("JAX_PROCESS_ID", 0)))
     ap.add_argument("--coord", help="coordinator host:port (multi-process)")
-    ap.add_argument("--local-device", type=int, default=None,
-                    help="local card index this process uses "
-                         "(default: --pid, one process per card)")
     ap.add_argument("-c", "--coverage", type=int, default=0)
     ap.add_argument("-r", "--read-len", type=int, default=20000)
     ap.add_argument("-M", "--model")
@@ -272,8 +283,7 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     shard = run_process(a.source, a.fastk_root, a.output, a.nproc, a.pid,
                         a.coord, a.coverage, a.read_len, a.model,
-                        verbose=a.verbose, resume=a.resume,
-                        local_device=a.local_device)
+                        verbose=a.verbose, resume=a.resume)
     if a.nproc > 1:
         # cross-process barrier before the merge: one psum over the mesh
         from classpro_tpu.parallel.mesh import (data_parallel_mesh,

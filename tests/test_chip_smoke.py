@@ -40,6 +40,17 @@ def test_result_line_format():
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
 
 
+def test_timed_compiles_use_an_emptied_fixed_cache(monkeypatch):
+    """The scale phase's cold compile is timed in a fixed directory of
+    the checkout, not in a cache set from outside that may be warm."""
+    s = _smoke()
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/warm")
+    env = s.cold_cache_env()
+    assert env["JAX_COMPILATION_CACHE_DIR"] == s.COLD_CACHE
+    assert pathlib.Path(s.COLD_CACHE).parent == REPO / ".smoke"
+    assert s.child_env()["JAX_COMPILATION_CACHE_DIR"] == "/elsewhere/warm"
+
+
 def _run(script, cwd):
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)

@@ -133,6 +133,51 @@ def test_real_multi_process_jax_distributed(tmp_path, nproc):
     assert multi.read_bytes() == single.read_bytes()
 
 
+@pytest.mark.parametrize("visible,pid,card", [
+    ("0,1,2,3", 5, 1),      # second 4-card host: its second card
+    ("0,1,2,3", 3, 3),      # one 4-card host: the pid itself
+    ("2", 6, 0),            # the launcher showed it one card
+])
+def test_driver_pins_each_process_to_a_card_of_its_host(monkeypatch, visible,
+                                                        pid, card):
+    """A pid beyond its host's card count asks jax.distributed for a card
+    the host has: pid modulo the host's cards."""
+    from classpro_tpu.parallel import driver
+
+    seen = {}
+
+    class _Stop(Exception):
+        pass
+
+    def fake_initialize(**kw):
+        seen.update(kw)
+        raise _Stop
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    monkeypatch.setattr(jax.distributed, "initialize", fake_initialize)
+    with pytest.raises(_Stop):
+        driver.main(["reads.fasta", "--nproc", "8", "--pid", str(pid),
+                     "--coord", "localhost:8476"])
+    assert seen == {"coordinator_address": "localhost:8476",
+                    "num_processes": 8, "process_id": pid,
+                    "local_device_ids": [card]}
+
+
+def test_local_card_counts_device_nodes_without_visible_devices(
+        monkeypatch):
+    import os
+
+    from classpro_tpu.parallel.driver import local_card
+
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    nodes = ["nvidia0", "nvidia1", "nvidiactl", "nvidia-uvm", "null"]
+    monkeypatch.setattr(os, "listdir", lambda d: nodes)
+    monkeypatch.setattr(os.path, "isdir", lambda d: True)
+    assert [local_card(p) for p in range(4)] == [0, 1, 0, 1]
+    monkeypatch.setattr(os, "listdir", lambda d: ["null"])
+    assert local_card(5) == 5
+
+
 def test_shard_resume_kill_and_rerun(tmp_path):
     """Shard resume (SURVEY §5 checkpoint granularity): after a 'crash'
     that leaves shard 0 complete and shard 1 truncated mid-record, a
